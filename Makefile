@@ -12,7 +12,7 @@ ci: native test examples bench-smoke dryrun
 
 # four pytest processes, not one: a single ~2h process making thousands
 # of XLA:CPU compiles segfaults inside backend_compile_and_load (round 4
-# CI.log'd crash at ~80% of a half-suite; round 5 saw a two-shard split
+# crashed at ~80% of a half-suite; round 5 saw a two-shard split
 # still die at ~60% of shard A under load; every chunk passes standalone)
 # — splitting bounds the per-process compiler arena the same way the
 # reference CI bounds jobs (--jobs 1)
@@ -49,7 +49,7 @@ examples:
 	PYTHONPATH=. $(PY) examples/foodweb.py
 
 dryrun:
-	XLA_FLAGS=--xla_force_host_platform_device_count=8 $(PY) __graft_entry__.py
+	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 $(PY) __graft_entry__.py
 
 clean:
 	rm -rf ida_tpu/native/libida_oracle.so **/__pycache__ .pytest_cache

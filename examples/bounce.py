@@ -22,14 +22,11 @@ Run:  PYTHONPATH=. python examples/bounce.py
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
-
-from ida_tpu import IDA, IdaSolveStatus  # noqa: E402
-from ida_tpu.problem import IdaProblem  # noqa: E402
-from ida_tpu.tol_control import tol_ss  # noqa: E402
+from ida_tpu import IDA, IdaSolveStatus
+from ida_tpu.problem import IdaProblem
+from ida_tpu.tol_control import tol_ss
 
 G = 9.81
 E = 0.5  # coefficient of restitution

@@ -14,19 +14,15 @@ optimizer step.
 Run:  PYTHONPATH=. python examples/fit_kinetics.py
 """
 
-import numpy as np
-
 import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
 
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp  # noqa: E402
-import optax  # noqa: E402
-
-from ida_tpu.core.state import IdaOptions  # noqa: E402
-from ida_tpu.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory  # noqa: E402
-from ida_tpu.sensitivity import continuous_adjoint, solve_with_params  # noqa: E402
-from ida_tpu.tol_control import tol_sv  # noqa: E402
+from ida_tpu.core.state import IdaOptions
+from ida_tpu.models import ROBERTS_PARAMS, ROBERTS_YY0, roberts_factory
+from ida_tpu.sensitivity import continuous_adjoint, solve_with_params
+from ida_tpu.tol_control import tol_sv
 
 TOL = tol_sv(1e-8, jnp.asarray([1e-10, 1e-12, 1e-10]))
 OPTS = IdaOptions(mxstep=20000)

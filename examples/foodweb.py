@@ -7,15 +7,9 @@ Run: PYTHONPATH=. python examples/foodweb.py [mx]
 
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
-
-from ida_tpu import IDA, IdaOptions, IdaSolveStatus  # noqa: E402
-from ida_tpu.models.foodweb import foodweb_problem, foodweb_ic  # noqa: E402
-from ida_tpu.tol_control import tol_ss  # noqa: E402
+from ida_tpu import IDA, IdaOptions, IdaSolveStatus
+from ida_tpu.models.foodweb import foodweb_problem, foodweb_ic
+from ida_tpu.tol_control import tol_ss
 
 
 def main():

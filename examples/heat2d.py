@@ -6,15 +6,9 @@ Run: PYTHONPATH=. python examples/heat2d.py [grid_size]
 
 import sys
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
-
-from ida_tpu import IDA, IdaOptions, IdaSolveStatus  # noqa: E402
-from ida_tpu.models.heat2d import heat2d_problem, heat2d_ic  # noqa: E402
-from ida_tpu.tol_control import tol_ss  # noqa: E402
+from ida_tpu import IDA, IdaOptions, IdaSolveStatus
+from ida_tpu.models.heat2d import heat2d_problem, heat2d_ic
+from ida_tpu.tol_control import tol_ss
 
 
 def main():

@@ -5,29 +5,30 @@ root reporting, statistics table, and the WRMS acceptance check.
 Run: PYTHONPATH=. python examples/roberts.py
 """
 
-import jax
+import jax.numpy as jnp
+import numpy as np
 
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-
-from ida_tpu import IDA, IdaSolveStatus  # noqa: E402
-from ida_tpu.models import roberts_problem, ROBERTS_YY0, ROBERTS_YP0  # noqa: E402
-from ida_tpu.tol_control import tol_sv  # noqa: E402
+from ida_tpu import IDA, IdaSolveStatus
+from ida_tpu.models import roberts_problem, ROBERTS_YY0, ROBERTS_YP0
+from ida_tpu.tol_control import tol_sv
 
 RTOL = 1.0e-4
 ATOL = np.array([1.0e-8, 1.0e-6, 1.0e-6])
 
 
-def check_ans(y):
-    """reference examples/roberts.rs:9-51: WRMS error vs the rtol=1e-8
-    reference solution, with loosened weights, must be < 1."""
+def ans_wrms(y):
+    """reference examples/roberts.rs:9-51: WRMS error of the final state
+    vs the rtol=1e-8 reference solution, with loosened weights."""
     reference = np.array(
         [5.2083474251394888e-08, 2.0833390772616859e-13, 9.9999994791631752e-01]
     )
     ewt = 1.0 / (RTOL * np.abs(reference) + 10.0 * ATOL)
-    err = np.sqrt(np.mean((ewt * (y - reference)) ** 2))
+    return float(np.sqrt(np.mean((ewt * (y - reference)) ** 2)))
+
+
+def check_ans(y):
+    """The acceptance check: :func:`ans_wrms` must be < 1."""
+    err = ans_wrms(y)
     print(f"check_ans: WRMS error vs reference solution = {err:.6f} "
           f"({'PASS' if err < 1.0 else 'FAIL'})")
     return err < 1.0

@@ -7,23 +7,19 @@ lists as absent.
 Run: PYTHONPATH=. python examples/sensitivities.py
 """
 
-import jax
+import dataclasses
 
-jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
 
-import dataclasses  # noqa: E402
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-
-from ida_tpu.core.quad import get_quad  # noqa: E402
-from ida_tpu.models import roberts_factory, ROBERTS_PARAMS, ROBERTS_YY0  # noqa: E402
-from ida_tpu.sensitivity import (  # noqa: E402
+from ida_tpu.core.quad import get_quad
+from ida_tpu.models import roberts_factory, ROBERTS_PARAMS, ROBERTS_YY0
+from ida_tpu.sensitivity import (
     adjoint_gradient,
     batched_adjoint_gradient,
     forward_sensitivity,
 )
-from ida_tpu.tol_control import tol_sv  # noqa: E402
+from ida_tpu.tol_control import tol_sv
 
 TOL = tol_sv(1e-4, jnp.array([1e-8, 1e-6, 1e-6]))
 P0 = jnp.asarray(ROBERTS_PARAMS)

@@ -14,18 +14,14 @@ Run: PYTHONPATH=. python examples/slider_crank.py
 
 import dataclasses
 
-import jax
+import jax.numpy as jnp
+import numpy as np
 
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-
-from ida_tpu import IDA, IdaSolveStatus  # noqa: E402
-from ida_tpu.core.state import IdaOptions  # noqa: E402
-from ida_tpu.models import slider_crank_problem  # noqa: E402
-from ida_tpu.models.slider_crank import slider_crank_ic  # noqa: E402
-from ida_tpu.tol_control import tol_ss  # noqa: E402
+from ida_tpu import IDA, IdaSolveStatus
+from ida_tpu.core.state import IdaOptions
+from ida_tpu.models import slider_crank_problem
+from ida_tpu.models.slider_crank import slider_crank_ic
+from ida_tpu.tol_control import tol_ss
 
 A, J1, M2, J2 = 0.5, 1.0, 1.0, 2.0
 TEND = 10.0

@@ -1,20 +1,20 @@
-"""ida_tpu — a TPU-native (JAX/XLA/Pallas) reimplementation of SUNDIALS IDA.
+"""ida_tpu — a JAX/XLA reimplementation of SUNDIALS IDA for accelerators.
 
-A from-scratch, TPU-first rebuild of the DAE solver capabilities of
+A from-scratch, accelerator-first rebuild of the DAE solver capabilities of
 ``jondo2010/rust-ida`` (itself a Rust port of SUNDIALS IDA): the
 variable-order, variable-step, fixed-leading-coefficient BDF integrator for
 implicit differential-algebraic systems ``F(t, y, y') = 0``.
 
-Design (see /root/reference for the behavioural spec, SURVEY.md for the map):
+Design (the reference repository is the behavioural spec, SURVEY.md the map):
 
 * The reference's mutable ``Ida`` struct (reference ``src/lib.rs:89-244``)
   becomes an immutable :class:`ida_tpu.core.state.IdaState` pytree threaded
   through ``lax.while_loop`` state machines — fully jittable and vmappable.
 * The dense Newton/LU path (reference ``crates/linear/src/dense.rs``,
-  ``crates/nonlinear/src/newton.rs``) becomes batched, branchless JAX with a
-  Pallas kernel for large ensembles of small systems.
+  ``crates/nonlinear/src/newton.rs``) becomes batched, branchless JAX;
+  large ensembles of small systems factor in lockstep.
 * Rust ``Result`` control flow becomes integer status lanes so thousands of
-  independent DAE instances integrate in lockstep on one chip.
+  independent DAE instances integrate in lockstep on one device.
 
 Double precision is required for numerical parity with the reference; we
 enable the x64 flag at import (opt out with ``IDA_TPU_NO_X64=1``).

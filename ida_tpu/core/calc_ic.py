@@ -19,7 +19,7 @@ Newton updates (C IDANewyyp):
 with a halving linesearch on lambda (up to MAXBACKS). Convergence when the
 WRMS norm of the (linearly solved) Newton step is <= 0.01*epcon (C epiccon).
 
-This is a TPU-first reimplementation of the C algorithm (masked while
+This is an accelerator-first reimplementation of the C algorithm (masked while
 loops, AD Jacobians); it makes the same update steps but does not claim
 bit-parity with ida_ic.c (no golden oracles exist for it in the reference).
 """

@@ -4,7 +4,7 @@ Behavioural spec: reference ``set_coeffs`` (src/lib.rs:722-782), ``predict``
 (src/lib.rs:894-959), ``restore`` (src/lib.rs:1044-1083), ``reset``
 (src/lib.rs:1249-1252).
 
-TPU-first design: the reference's data-dependent loops over the current
+Design: the reference's data-dependent loops over the current
 order ``kk`` become unrolled straight-line code over the static MAXORD bound
 with per-index masks — no dynamic shapes, identical arithmetic order for the
 lanes that are active, so individual trajectories match the reference to
@@ -157,8 +157,9 @@ def predict(
     gamma[j] phi[j] (src/lib.rs:894-959). ``mask`` as in set_coeffs.
 
     (A stacked two-output reduction measured the same or slightly slower
-    on TPU — XLA already streams phi efficiently through the two separate
-    reduces — so the straightforward form stays.)
+    on an earlier accelerator — XLA streams phi through the two separate
+    reduces — so the straightforward form stays; not yet measured on the
+    GPU.)
 
     ``fast_math``: phi is unscaled; fold :func:`phi_star_scale` into the
     per-row coefficients ([K1,B] arithmetic — zero extra phi bytes). The

@@ -36,7 +36,8 @@ def complete_step(
     """``mask`` (per-lane bool) folds the caller's success-merge INTO this
     routine's own masked updates: lanes with mask=False pass through
     bit-identically, so the caller needs no full-state select afterwards —
-    the phi-sized merge was one of the most expensive fusions on TPU. When
+    the phi-sized merge was one of the most expensive fusions on an
+    earlier accelerator (not yet measured on the GPU). When
     ``ck`` is given, the success path's ``ee *= ck`` (src/lib.rs:708) is
     applied here under the same mask."""
     dtype = state.dtype

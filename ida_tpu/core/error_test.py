@@ -48,10 +48,10 @@ def error_test(
 
     # error estimate vectors at orders k, k-1, k-2
     # (src/lib.rs:982-1007): ee; phi[kk] + ee; that + phi[kk-1].
-    # Per-row take_row picks: measured FASTER on TPU than a stacked
-    # one-hot pick reading phi once (scripts/fusion_probe.py — XLA streams
-    # the two where+reduce fusions better than the [2,K1,N,B] masked
-    # intermediate), and it is the Mosaic-proven form for the fused kernel.
+    # Per-row take_row picks: measured faster on an earlier accelerator
+    # than a stacked one-hot pick reading phi once (XLA streamed the two
+    # where+reduce fusions better than the [2,K1,N,B] masked intermediate;
+    # the probe is in git history); not yet measured on the GPU.
     row_k = take_row(state.phi, kk)
     row_km1 = take_row(state.phi, jnp.maximum(kk - 1, 0))
     if opts.fast_math:
@@ -64,10 +64,10 @@ def error_test(
         row_km1 = row_km1 * jnp.expand_dims(take1(s, jnp.maximum(kk - 1, 0)), 0)
     delta1 = row_k + state.ee
     delta2 = delta1 + row_km1
-    # three separate reduces, NOT one stacked [3,N,batch] reduction: Mosaic
-    # rejects the stacked form inside the fused Pallas kernel ("input layout
-    # must have zero offsets over dimensions that are being reduced"); XLA
-    # fuses the three identically-shaped reduces anyway
+    # three separate reduces, not one stacked [3,N,batch] reduction: the
+    # form a removed Pallas kernel needed, kept because XLA fuses the three
+    # identically-shaped reduces anyway and changing the reduction order
+    # risks step-parity flips
     enorm_k = _norm(state, problem, opts, state.ee)
     enorm_km1 = _norm(state, problem, opts, delta1)
     enorm_km2 = _norm(state, problem, opts, delta2)

@@ -7,7 +7,7 @@ Behavioural spec:
 * IDA-specific sys/setup/solve/ctest: reference ``src/ida_nls.rs:105-266``
   and ``src/ida_ls.rs:232-455``
 
-TPU-first design: the reference's outer(retry)/inner(iterate) Rust loops
+Design: the reference's outer(retry)/inner(iterate) Rust loops
 with ``Result`` early exits become two nested masked ``while_loop`` state
 machines; every lane of a vmapped ensemble runs its own iteration count in
 lockstep. The loop carries hold ONLY what each loop mutates — the BDF
@@ -46,7 +46,7 @@ def _res_ok(r) -> jax.Array:
     """Per-lane recoverable-residual channel (C IDA res return flag;
     reference error.rs:3-15 Recoverable::Residual, ida_nls.rs:118-153).
     User callbacks here are pure functions with no return-flag channel, so
-    the TPU-native failure signal is the residual VALUE itself: any
+    the failure signal is the residual VALUE itself: any
     non-finite entry (overflow at a too-ambitious h, log/sqrt out of
     domain, ...) marks the lane's evaluation recoverably failed. One
     reduce over an array the conv-test already reads — fuses into the
@@ -540,8 +540,8 @@ def nonlinear_solve(
             lin=lin,
             ss=inner.ss,
             call_lsetup=retry,
-            # logical_and, not where(pred, False, .): bool selects hit Mosaic's
-            # 'Unsupported target bitwidth for truncation' inside Pallas
+            # logical_and, not where(pred, False, .): the form a removed
+            # Pallas kernel needed, kept (rewrites risk step-parity flips)
             jcur=jnp.logical_and(jcur, inner.istatus != _OK),
             ostatus=ostatus,
         )
@@ -561,8 +561,8 @@ def nonlinear_solve(
         # the retry loop runs at most twice (one retry with a fresh
         # Jacobian: body sets ostatus != CONTINUE unless retry, and a retry
         # sets jcur so the second pass always terminates) — two masked
-        # applications are exact and keep the fused Pallas kernel free of
-        # dynamic while loops (Mosaic layout inference rejects this one)
+        # applications are exact and reverse-differentiable, which a
+        # dynamic while loop is not (the adjoint path forces this form)
         out = init
         for _ in range(2):
             out = tree_where(cond(out), body(out), out)
@@ -637,8 +637,8 @@ def nonlinear_solve(
     # branch unimplemented!() with the C spec in comments, src/lib.rs:857-887)
     # constraint codes: 2 => y>0, 1 => y>=0, -1 => y<=0, -2 => y<0, 0 = none
     cvec = state.constraints
-    # pure boolean algebra, not nested bool-valued wheres (Mosaic rejects
-    # bool selects with 'Unsupported target bitwidth for truncation')
+    # pure boolean algebra, not nested bool-valued wheres (the removed
+    # Pallas kernel's form; kept, as rewrites risk step-parity flips)
     viol = (
         jnp.logical_and(cvec == 2.0, yy <= 0.0)
         | jnp.logical_and(cvec == 1.0, yy < 0.0)

@@ -6,7 +6,7 @@ handling, :32-99), ``r_check2`` (re-check at last root, :117-209),
 (:343-576), the Illinois modified-secant algorithm (Hiebert & Shampine,
 SAND80-0180).
 
-TPU-first design: the reference's fold loops over root components become
+Design: the reference's fold loops over root components become
 vectorized masked reductions (any/argmax); the bracketing loop is a masked
 ``while_loop`` with a hard iteration bound. Deviation from the reference
 (not from C IDA): roots start active at t0 (see core/state.py).

@@ -7,7 +7,7 @@ root re-checks and stop tests, then the internal-step loop (mxstep guard,
 ewt refresh + positivity, accuracy test, step(), per-step root check,
 post-step stop test).
 
-TPU-first design: one traced function; every reference early-return is a
+Design: one traced function; every reference early-return is a
 status lane write that terminates the masked while loop, so a vmapped batch
 of instances with different step counts finishes in lockstep. The host-side
 wrapper in ``ida_tpu.solver`` decodes statuses into exceptions/enums.
@@ -234,8 +234,9 @@ def _stop_test2(
     """Post-step stop tests (reference impl_stop_test.rs:146-211), with the
     interpolation DEFERRED: instead of evaluating y(t) inline (which would
     run the full cvals/dvals interpolation every attempt only to be masked
-    away on continuing lanes — measured as the single largest per-iteration
-    cost on TPU), this returns (state, tret, istate, ikind, itgt) where
+    away on continuing lanes — measured as the single largest
+    per-iteration cost on an earlier accelerator), this returns (state,
+    tret, istate, ikind, itgt) where
     ikind/itgt say which interpolation the exiting lane needs; the caller
     applies it ONCE after the loop. Lanes freeze at exit, so the deferred
     evaluation is bit-identical to the inline one."""
@@ -318,9 +319,9 @@ def solve(
     ROOT_RETURN or a negative failure code.
 
     ``max_attempts`` (trace-time) bounds the internal loop to a FIXED trip
-    count (``lax.fori_loop`` with masked body — lowers to a static ``scf.for``
-    that Mosaic accepts inside a Pallas kernel, unlike a data-dependent
-    while). Lanes that need more attempts return with istate == CONTINUE and
+    count (``lax.fori_loop`` with masked body — reverse-differentiable,
+    unlike a data-dependent while). Lanes that need more attempts return
+    with istate == CONTINUE and
     an opaque ``carry`` for exact resumption; the return becomes
     ``(state, tret, istate, carry)``. Pass the carry back via
     ``resume_carry`` to continue precisely where the loop stopped (the
@@ -1104,7 +1105,7 @@ def _run_attempt_loop(
             nef=nef,
             # retry the same step unless the attempt landed; frozen lanes
             # keep their carried value (self-masked contract). Logical
-            # algebra, not a bool select (Mosaic truncation limitation).
+            # algebra, not a bool select (a removed Pallas kernel's form).
             fresh=jnp.logical_or(
                 jnp.logical_and(active, success),
                 jnp.logical_and(jnp.logical_not(active), c.fresh),
@@ -1125,8 +1126,8 @@ def _run_attempt_loop(
         state = apply_deferred_interp(out)._replace(status=out.istate)
         return state, out.tret, out.istate
 
-    # fixed trip count: a masked fori_loop (static scf.for under Mosaic —
-    # data-dependent whiles fail Pallas layout inference, PERF.md). Lanes
+    # fixed trip count: a masked fori_loop (reverse-differentiable, unlike
+    # a data-dependent while). Lanes
     # needing more attempts come back with istate == CONTINUE plus the loop
     # carry for exact host-side resumption. The deferred interpolation is
     # applied at every budget boundary (idempotent on frozen lanes), but
@@ -1140,7 +1141,7 @@ def _run_attempt_loop(
         # attempt's internals (Newton iterates, factors) during the VJP
         fbody = jax.checkpoint(fbody)
 
-    # int-carried fori: i1 vector loop carries CHECK-fail Mosaic (tree.py)
+    # int-carried fori (see utils/tree.py)
     out = int_carry_fori_loop(0, max_attempts, fbody, init)
     state = apply_deferred_interp(out)._replace(status=out.istate)
     carry = (

@@ -5,7 +5,7 @@ nonlinear/linear problem state (reference ``src/lib.rs:89-244``,
 ``src/ida_nls.rs:20-60``, ``src/ida_ls.rs:15-106``), flattened into one
 immutable NamedTuple.
 
-TPU-first design: every field is a statically-shaped array so the whole
+Design: every field is a statically-shaped array so the whole
 state is a ``lax.while_loop`` carry and a ``vmap`` batch axis can be laid
 over all of it. Rust ``Result`` early-exits become the ``status`` lane;
 Python/host code never sees intermediate states.
@@ -60,9 +60,9 @@ class IdaOptions:
     # Newton: the fixed point (residual -> 0) and the f64 local error test
     # are unchanged, so trajectories stay within the requested tolerances,
     # but step counts are NOT bit-identical to C IDA — this mode trades
-    # step-parity for the chip's ~1.6-2x f32 bandwidth advantage. v5e has
-    # no f64 FPU (f64 is emulated as split-f32 pairs), which is exactly
-    # why this lever exists (PERF.md round 3; NEXT.md lever 1b).
+    # step-parity for float32's halved bytes. The lever was built for an
+    # earlier accelerator that emulated f64; its gain on the GPU, which
+    # has native f64, is not yet measured.
     # "refined": dense path only. The Jacobian is evaluated in f64,
     # FACTORED AND STORED in f32 (halving the factor's HBM footprint in
     # the loop carry), and every linear solve runs one step of f64

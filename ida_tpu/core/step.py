@@ -9,7 +9,7 @@ Behavioural spec: reference ``step`` (src/lib.rs:613-711) and
       on failure: restore + handle_n_flag (+ reset if nst == 0), retry
     } then complete_step, ee *= ck
 
-TPU-first design: the Rust retry loop with Result early-exits becomes a
+Design: the Rust retry loop with Result early-exits becomes a
 masked ``while_loop`` whose carry holds local failure counters (ncf/nef) and
 a done/fatal lane per instance.
 
@@ -112,8 +112,7 @@ def _handle_n_flag(
     nef = jnp.where(is_etf, nef_new, nef)
     ncf = jnp.where(is_etf, ncf, ncf_new)
     # bool->counter-dtype casts, NOT jnp.where(?, 1, 0): a weak-int where
-    # materializes a default-int (int64 under x64) tensor, and int64 is
-    # unlowerable inside the fused Pallas kernel (Mosaic recurses forever)
+    # materializes a default-int (int64 under x64) tensor
     netf = state.netf + jnp.logical_and(is_etf, mask).astype(state.netf.dtype)
     ncfn = state.ncfn + jnp.logical_and(
         jnp.logical_not(is_etf), mask

@@ -16,7 +16,7 @@ the C example's structure (values documented here, not golden-matched).
 Preconditioner: block-diagonal over grid points — at each point the
 ns x ns reaction Jacobian plus cj on differential rows, LU-factored with
 the batched dense kernel (a [npts, ns, ns] vmapped factorization, exactly
-the "batched small-LU" shape the TPU path is built for).
+the "batched small-LU" shape the ensemble path is built for).
 """
 
 from __future__ import annotations
@@ -28,6 +28,10 @@ import numpy as np
 from ..ops.dense_lu import lu_factor_unrolled as lu_factor, lu_solve_unrolled as lu_solve
 from ..ops.dense_lu import DenseLU
 from ..problem import IdaProblem
+
+# float32 contractions must not drop to TF32 on GPUs (about three decimal
+# digits): every einsum here asks for full precision
+HIGHEST = jax.lax.Precision.HIGHEST
 
 AA = 1.0
 EE = 1.0e4
@@ -72,13 +76,14 @@ def foodweb_problem(mx: int = 20, my: int = 20, use_prec: bool = True) -> IdaPro
         The captured constant arrays are cast to the STATE dtype: without
         this, f32 inputs silently promote to f64 through the f64 constants,
         which ran the whole jtimes jvp — the dominant Krylov cost — in
-        emulated f64 even under ls_precision="single" (measured: the
-        foodweb mixed leg gained only 1.05x vs heat2d's 4.29x, round 4)."""
+        f64 even under ls_precision="single" (on an earlier accelerator
+        with emulated f64, the foodweb mixed leg gained only 1.05x vs
+        heat2d's 4.29x until this was fixed)."""
         dt = c3.dtype
         lap = jnp.stack([_lap_neumann(c3[:, :, s]) for s in range(ns)], axis=2)
         # rates_t = b_t + sum_s a_ts c_s (trailing batch rides the ellipsis)
         rates = bcoef.astype(dt).reshape((mx, my, ns) + (1,) * bnd) + jnp.einsum(
-            "xys...,ts->xyt...", c3, acoef.astype(dt)
+            "xys...,ts->xyt...", c3, acoef.astype(dt), precision=HIGHEST
         )
         return diff.astype(dt).reshape((1, 1, ns) + (1,) * bnd) * lap + c3 * rates
 
@@ -102,7 +107,9 @@ def foodweb_problem(mx: int = 20, my: int = 20, use_prec: bool = True) -> IdaPro
         bnd = len(lane)
         c_pts = yyv.reshape((npts, ns) + lane)
         b_pts = bcoef.reshape((npts, ns) + (1,) * bnd)
-        rate = b_pts + jnp.einsum("ts,ps...->pt...", acoef, c_pts)
+        rate = b_pts + jnp.einsum(
+            "ts,ps...->pt...", acoef, c_pts, precision=HIGHEST
+        )
         eye = jnp.eye(ns).reshape((1, ns, ns) + (1,) * bnd)
         a_b = acoef.reshape((1, ns, ns) + (1,) * bnd)
         jac_r = eye * rate[:, :, None] + c_pts[:, :, None] * a_b

@@ -6,8 +6,8 @@
 initial profile u = 16 x (1-x) y (1-y). The reference does not ship this
 problem; it is BASELINE.md config 4 ("idaHeat2D-style 100x100 grid DAE").
 
-TPU-first design: the state is the flattened grid; the residual computes the
-5-point Laplacian with shifted slices on the [M, M] view — pure VPU work
+Design: the state is the flattened grid; the residual computes the
+5-point Laplacian with shifted slices on the [M, M] view — pure elementwise work
 that XLA fuses, and the natural demo for the SPGMR matrix-free path (the
 dense Jacobian would be 1e8 entries at M=100). The diagonal preconditioner
 mirrors C ``idaHeat2D_kry``'s PsetupHeat/PsolveHeat.

@@ -56,8 +56,7 @@ def roberts_factory(params, with_roots: bool = False) -> IdaProblem:
         return jnp.stack([r0 - yp[0], r1, yy[0] + yy[1] + yy[2] - 1.0])
 
     def jac(t, cj, yy, yp, rr):
-        # rows built from traced values only (no literal sub-arrays): the
-        # fused Pallas path disallows non-scalar constants in kernels
+        # rows built from traced values only (no literal sub-arrays)
         row0 = jnp.stack([-k1 - cj, k2 * yy[2], k2 * yy[1]])
         row1 = jnp.stack([k1, -k2 * yy[2] - 2.0 * k3 * yy[1] - cj, -k2 * yy[1]])
         row2 = jnp.ones_like(yy)

@@ -15,43 +15,10 @@ Sharding: for a state vector sharded over a device mesh the sum becomes a
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import jax
 import jax.numpy as jnp
 
 from .utils.ad_mode import ssqrt
-
-# Trace-time switch: inside a Pallas TPU kernel, jnp.sum over a small
-# leading data axis of a batch-last array fails Mosaic layout inference
-# ("input layout must have zero offsets over dimensions that are being
-# reduced"); an unrolled sequential row-sum is accepted and matches XLA's
-# small-reduce association order (validated bit-identical by the fused
-# kernel tests).
-_UNROLL_REDUCES = contextvars.ContextVar("ida_unroll_reduces", default=False)
-
-
-@contextlib.contextmanager
-def unrolled_reduces():
-    """Trace norms with unrolled row-sums (fused Pallas kernel mode)."""
-    tok = _UNROLL_REDUCES.set(True)
-    try:
-        yield
-    finally:
-        _UNROLL_REDUCES.reset(tok)
-
-
-def _sum_axis(t: jax.Array, axis: int) -> jax.Array:
-    if _UNROLL_REDUCES.get() and t.shape[axis] <= 64:
-        idx = [slice(None)] * t.ndim
-        idx[axis] = 0
-        acc = t[tuple(idx)]
-        for i in range(1, t.shape[axis]):
-            idx[axis] = i
-            acc = acc + t[tuple(idx)]
-        return acc
-    return jnp.sum(t, axis=axis)
 
 
 def wrms_norm(x: jax.Array, w: jax.Array, axis_name: str | None = None) -> jax.Array:
@@ -96,7 +63,7 @@ def wrms_norm_bnd(
     if mask is not None:
         t = t * mask.astype(x.dtype).reshape((n,) + (1,) * bnd)
     axis = x.ndim - 1 - bnd
-    return ssqrt(_sum_axis(jnp.square(t), axis) / n)
+    return ssqrt(jnp.sum(jnp.square(t), axis=axis) / n)
 
 
 def wrms_norm_maybe_masked(

@@ -7,12 +7,12 @@ partial pivoting restricted to the ``ml`` subdiagonal rows of each column
 (first occurrence of the column max wins, as in the dense port), ``ml``
 fill rows above the stored band to absorb row swaps.
 
-TPU-first design: the band lives in LAPACK-style column band storage
+Design: the band lives in LAPACK-style column band storage
 ``ab[i - j + smu, j]`` with ``smu = mu + ml`` (rows ``0..ml-1`` are fill),
 padded with ``smu`` zero columns so every window slice is in-range. One
 ``fori_loop`` step per column does: a STATIC (ml+1)-row pivot search, a
 row swap expressed as two one-hot rank-1 corrections (no scatters, no
-dynamic gathers — Mosaic-friendly), and the trailing rank-1 band update
+dynamic gathers), and the trailing rank-1 band update
 built from a static ``di = r - smu + t`` index grid. Everything carries an
 arbitrary trailing batch: ``ab`` may be ``[rows, n]`` or ``[rows, n, B]``
 (batch-native ensembles factor B bands in lockstep).

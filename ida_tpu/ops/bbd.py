@@ -3,7 +3,7 @@
 The C IDA companion module IDABBDPRE builds, per MPI rank, a BANDED
 difference-quotient approximation of the local Jacobian and uses its LU as
 the SPGMR preconditioner. The reference never ported it (its Krylov path is
-entirely stubbed, ida_ls.rs:70-96); this is the TPU-native equivalent,
+entirely stubbed, ida_ls.rs:70-96); this is the accelerator-native equivalent,
 built on ops/banded.py:
 
 * the "local block" is the full on-chip state (single-system case), each

@@ -7,12 +7,12 @@ column max at-or-below the diagonal) and the elimination order are preserved
 so factorizations match the reference's golden fixtures bit-for-bit on
 well-posed inputs.
 
-TPU-first design: the factorization is expressed as N rank-1 updates over a
+Design: the factorization is expressed as N rank-1 updates over a
 statically-shaped [N, N] matrix inside a ``fori_loop`` — fully vmappable, so
 a [B, N, N] ensemble factors in lockstep with no data-dependent shapes. For
-Roberts-class problems (N=3..10) this is a handful of fused VPU ops per
-instance; batches of thousands saturate the chip. (A Pallas fused
-Newton-step kernel for the hot ensemble path lives in ``ops/pallas_lu.py``.)
+Roberts-class problems (N=3..10) the hot ensemble path uses the unrolled
+variant below: a handful of fused elementwise ops per instance, which XLA
+compiles for the accelerator as it is.
 
 Failure (zero pivot) is reported as a status lane, not an exception:
 ``col`` is the 1-based column of the first zero pivot, 0 on success —
@@ -94,7 +94,7 @@ def lu_factor_unrolled(a: jax.Array) -> DenseLU:
     Identical arithmetic and pivot choices to :func:`lu_factor` -- the same
     multiplies and subtractions in the same order -- but fully scalarized:
     the matrix lives as N*N separate traced scalars updated with selects,
-    so under vmap the TPU sees one short fused chain of full-width VPU ops
+    so under vmap the device sees one short fused chain of full-width ops
     (no gathers, scatters, or dynamic slices). Results are bit-identical.
     """
     # leading-axis size: N in both per-lane [N, N] and batch-native
@@ -174,8 +174,9 @@ def lu_solve_unrolled(f: DenseLU, b: jax.Array) -> jax.Array:
     return jnp.stack(x)
 
 
-# below this size, the unrolled elementwise variant wins on TPU and is
-# bit-identical; above it, loop/unroll code size starts to hurt
+# below this size the unrolled elementwise variant is used; it is
+# bit-identical. The crossover was tuned on an earlier accelerator and is
+# not yet measured on the GPU; above it, unrolled code size starts to hurt
 SMALL_N_UNROLL = 16
 
 

@@ -9,7 +9,7 @@ P and row/column scalings s1, s2 by running GMRES on
 
     (s1 P^{-1} A s2^{-1}) (s2 x) = s1 P^{-1} b .
 
-TPU-first design: A is never materialized — callers pass ``atimes`` (for
+Design: A is never materialized — callers pass ``atimes`` (for
 IDA, one ``jax.jvp`` of the residual). The Arnoldi loop is a fixed
 ``maxl``-iteration masked loop (static shapes [maxl+1, N, *batch] for the
 Krylov basis); restarts are a masked while loop. Dot products/norms reduce

@@ -2,7 +2,7 @@
 lockstep on one chip — the DP axis of this domain (SURVEY.md §2.2).
 
 The reference has no parallelism at all (single-problem, single-thread;
-SURVEY.md §2.2); this module is the TPU-native scale-out axis: ``vmap`` the
+SURVEY.md §2.2); this module is the scale-out axis: ``vmap`` the
 entire functional solver over a leading batch axis. Every while loop in the
 core is masked (ida_tpu.utils.tree), so instances with different step
 counts, orders, and retry histories advance together; finished instances
@@ -94,7 +94,7 @@ class EnsembleIDA:
     ):
         """``mesh``: optional :class:`jax.sharding.Mesh` (see
         :func:`ida_tpu.parallel.make_mesh`) — lanes are split across its
-        first axis (data parallelism over ICI; SURVEY.md §2.2). The batch
+        first axis (data parallelism; SURVEY.md §2.2). The batch
         must divide by the mesh size. Everything else is unchanged: XLA
         runs each shard's lockstep solver locally with zero inner-loop
         collectives."""
@@ -340,11 +340,11 @@ def make_stratified_solve(
     spread; sorted k=4 sub-batching cuts it to ~5%).
 
     **When to use (measured, PERF.md):** only when lanes have linear cost —
-    CPU hosts, or batches far beyond chip saturation. On one TPU chip at
-    B <= ~256k the device is resource-bound, masked idle lanes are free,
-    and stratification LOSES (B=65536, 2-decade spread: plain lockstep
-    22.4M steps/s vs 5.9M at k=4 — each sub-batch pays the full
-    per-iteration wall). This builds
+    CPU hosts, or batches far beyond device saturation. On an earlier
+    accelerator at B <= ~256k the device was resource-bound, masked idle
+    lanes were free, and stratification lost (each sub-batch pays the
+    full per-iteration wall); on the GPU this is not yet measured. This
+    builds
     ``fn(states, params, tol, tout, cost_key) -> (states, tret, istate)``
     that sorts lanes by ``cost_key`` (any per-lane cost proxy: a stiffness
     estimate, or nst from a cheap pilot solve — see :func:`pilot_cost`),
@@ -352,8 +352,7 @@ def make_stratified_solve(
     lanes run in lockstep together, and restores the original lane order.
 
     B must be divisible by ``n_chunks``. Each call dispatches ``n_chunks``
-    device programs; keep B/n_chunks large enough to saturate the chip
-    (>= ~8k lanes on one TPU core for Roberts-class problems).
+    device programs; keep B/n_chunks large enough to saturate the device.
     """
     base = make_ensemble_solve(problem_factory, opts, donate=False)
 

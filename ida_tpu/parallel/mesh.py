@@ -1,20 +1,47 @@
-"""Device-mesh sharding of ensembles over ICI.
+"""Device-mesh sharding of ensembles.
 
-The ensemble batch axis is embarrassingly parallel: shard it over a 1-D
-mesh and XLA runs each shard's lockstep solver locally with zero inner-loop
-collectives (norms and convergence tests are per-instance). DCN only enters
-for multi-slice ensembles — exactly the layout SURVEY.md §2.2 calls for.
-Large single systems (sharded state vectors + SPGMR with psum reductions)
-ride the same mesh via the Krylov path (ops/spgmr.py).
+The ensemble batch axis is embarrassingly parallel: shard it over a flat
+1-D mesh and XLA runs each shard's lockstep solver locally with zero
+inner-loop collectives (norms and convergence tests are per-instance) —
+exactly the layout SURVEY.md §2.2 calls for. Large single systems
+(sharded state vectors + SPGMR with psum reductions) ride the same mesh
+via the Krylov path (ops/spgmr.py).
 """
 
 from __future__ import annotations
+
+import re
 
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..core.state import IdaState
+
+
+_COLLECTIVE_RE = re.compile(
+    r"=\s*(\(.*?\)|\S+)\s+(all-reduce|all-gather|reduce-scatter|"
+    r"collective-permute|all-to-all)(-start|-done)?\("
+)
+
+
+def data_collectives(hlo_text: str, allow_scalar: bool = True) -> list[str]:
+    """The collective instructions of a compiled HLO module that move
+    array data: every all-reduce / all-gather / reduce-scatter /
+    collective-permute / all-to-all (and its async ``-start``/``-done``
+    halves) whose result holds a non-scalar array. With ``allow_scalar``,
+    scalar collectives — the ``pred[]`` all-reduces of a global while-loop
+    condition, alone or combined into a tuple — move one element per loop
+    trip and are not reported; without it every collective is."""
+    bad = []
+    for line in hlo_text.splitlines():
+        m = _COLLECTIVE_RE.search(line)
+        if m is None:
+            continue
+        dims = re.findall(r"\w+\[([^\]]*)\]", m.group(1))
+        if not allow_scalar or any(d.strip() for d in dims):
+            bad.append(line.strip()[:160])
+    return bad
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "batch") -> Mesh:

@@ -99,7 +99,7 @@ class IdaProblem:
         jdata=None,
     ) -> jax.Array:
         """Matrix-free J v = (dF/dy) v + cj (dF/dy') v via one jvp — the
-        TPU-native replacement for the reference's absent DQ jtimes
+        matrix-free replacement for the reference's absent DQ jtimes
         (src/ida_ls.rs:136-152) — or the user ``jtimes_fn`` when provided."""
         if self.jtimes_fn is not None:
             return self.jtimes_fn(jdata, t, cj, yy, yp, v)

@@ -55,6 +55,10 @@ from .problem import IdaProblem
 from .tol_control import TolControl
 from .utils.ad_mode import safe_ad
 
+# float32 products must not drop to TF32 on GPUs (about three decimal
+# digits) when the caller picks float32
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def solve_with_params(
     problem_factory: Callable[[Any], IdaProblem],
@@ -343,7 +347,7 @@ def adjoint_hvp(
 
 # ---------------------------------------------------------------------------
 # Continuous adjoint (the IDAS IDAA machinery: IDAAdjInit / IDASolveB /
-# IDACalcICB / backward quadratures), TPU-native form.
+# IDACalcICB / backward quadratures), accelerator-native form.
 # ---------------------------------------------------------------------------
 
 
@@ -507,7 +511,7 @@ def continuous_adjoint(
         lam_T = jnp.asarray(lamT, dtype)
     # consistent lambda'(T): M^T lam' = J^T lam on differential rows
     # (algebraic rows get 0 — they do not enter the residual)
-    rhsd = (1.0 - m_alg) * (J_T.T @ lam_T)
+    rhsd = (1.0 - m_alg) * jnp.matmul(J_T.T, lam_T, precision=HIGHEST)
     lamp_T = lu_solve_auto(
         lu_factor_auto(M_T.T + jnp.diag(m_alg)), rhsd
     ) * (1.0 - m_alg)
@@ -545,7 +549,7 @@ def continuous_adjoint(
     y0_t, yp0_t = yy0, yp0
     M_0 = jax.jacfwd(lambda v: prob.res(t0, y0_t, v))(yp0_t)
     lam_0 = st_b.yy
-    grad_y0 = -(M_0.T @ lam_0)
+    grad_y0 = -jnp.matmul(M_0.T, lam_0, precision=HIGHEST)
 
     return loss, grad_p, grad_y0, ist_f, ist_b
 
@@ -557,11 +561,10 @@ def continuous_adjoint(
 # (cost and tape linear in attempts), the continuous adjoint costs ~2
 # solves + an O(grid) checkpoint pass regardless of horizon.
 #
-# Lower edge (speed): on the round-4 TPU bench the continuous strategy was
-# 25.7x faster at ~120 attempts/lane (BENCH_DETAIL
-# adjoint_continuous.vs_discrete_adjoint); on CPU it is already 4.5x
-# faster at ~60 attempts. Below a few dozen attempts the discrete tape's
-# single forward pass wins.
+# Lower edge (speed): on CPU the continuous strategy is already 4.5x
+# faster at ~60 attempts; below a few dozen attempts the discrete tape's
+# single forward pass wins. The crossover has not been measured on the
+# GPU yet.
 #
 # Upper edge (accuracy): the continuous gradient is limited by the
 # cubic-Hermite checkpoint interpolation. Measured on Roberts vs central

@@ -211,7 +211,7 @@ class IDA:
         monotone time grid in ONE jitted call, returning the interpolated
         solution at each grid point.
 
-        TPU-first equivalent of the reference's host-side output loop
+        The device-side equivalent of the reference's host-side output loop
         (examples/roberts.rs:55-70 calls ``solve`` once per row): here the
         grid sweep is a single device program with no host round-trips
         between outputs. Two forms, bit-identical on success paths

@@ -1,7 +1,7 @@
 """Profiling hooks.
 
 The reference's profiling is ``thread_profiler`` scopes around each hot
-routine producing a Chrome trace (SURVEY.md §5). The TPU-native equivalent
+routine producing a Chrome trace (SURVEY.md §5). The JAX equivalent
 is the XLA profiler plus per-routine ``jax.named_scope`` annotations
 (``profile_scope!`` in every hot function: reference src/lib.rs:614-615,
 723-724, 788-789, 895-896, 1275-1276, 1363-1364; impl_solve.rs:75-76;
@@ -41,7 +41,7 @@ def scope(name: str):
 
 @contextlib.contextmanager
 def profile(trace_dir: str):
-    """Capture an XLA/TPU profiler trace around a block::
+    """Capture an XLA profiler trace around a block::
 
         with ida_tpu.utils.profiling.profile("/tmp/ida_trace"):
             ens.solve(400.0)

@@ -6,7 +6,7 @@ src/lib.rs:635-639, analyzed against an instrumented C run in
 scripts/data_trace.ipynb). SURVEY.md §4 calls this the tool that made
 C-parity achievable; here it is a first-class debug mode.
 
-TPU-first design: inside jit we can't write files, so the step-attempt loop
+Design: inside jit we can't write files, so the step-attempt loop
 emits the trace via ``jax.debug.callback`` (ordered side effect) into a
 host-side collector when ``IdaOptions.debug_trace`` is on. Works under jit;
 under vmap every lane is dumped (the record carries whatever batch shape

@@ -38,14 +38,14 @@ def tree_where(pred, new_tree: T, old_tree: T) -> T:
             elif new.shape[: p.ndim] == p.shape:
                 p = p.reshape(p.shape + (1,) * (new.ndim - p.ndim))
         if p.ndim and p.shape != new.shape:
-            # explicit int32 broadcast instead of an implicit i1 sublane
-            # broadcast in the select: Mosaic (Pallas TPU) rejects some i1
-            # mask-broadcast layouts with "Not implemented: Sublane
-            # broadcast"; XLA fuses this identically either way
+            # explicit int32 broadcast instead of an implicit i1
+            # broadcast in the select: the form a removed Pallas kernel
+            # needed, kept because XLA fuses it identically and rewriting
+            # it risks step-parity flips
             p = jnp.broadcast_to(p.astype(jnp.int32), jnp.broadcast_shapes(p.shape, new.shape)) != 0
         if new.dtype == jnp.bool_:
-            # boolean select as logical algebra: Mosaic rejects i1 selects
-            # with "Unsupported target bitwidth for truncation"
+            # boolean select as logical algebra (the same removed kernel's
+            # form, kept for the same reason)
             return jnp.logical_or(
                 jnp.logical_and(p, new),
                 jnp.logical_and(jnp.logical_not(p), old),
@@ -59,14 +59,15 @@ def take1(vec: jax.Array, idx: jax.Array) -> jax.Array:
     """Exact dynamic element pick from a small vector via one-hot masked sum.
 
     Lowers to elementwise multiply + reduce instead of a gather — under vmap
-    on TPU, batched gathers serialize while this stays full-width VPU work.
+    batched gathers can serialize while this stays full-width elementwise
+    work.
     Exact (no arithmetic on the selected value: zeros sum away).
 
     Batch-native layout supported: ``vec`` may be [K, *batch] with ``idx``
     [*batch]; the pick reduces over axis 0."""
     n = vec.shape[0]
-    # broadcasted_iota, not reshape-of-arange: Mosaic rejects 1-D->N-D shape
-    # casts inside Pallas kernels (infer-vector-layout: unsupported shape cast)
+    # broadcasted_iota, not reshape-of-arange (the removed Pallas kernel's
+    # form; XLA lowers both alike)
     onehot = jax.lax.broadcasted_iota(jnp.int32, (n,) + (1,) * jnp.ndim(idx), 0) == idx
     return jnp.sum(jnp.where(onehot, vec, jnp.zeros((), vec.dtype)), axis=0)
 
@@ -115,14 +116,12 @@ def masked_while_loop(cond_fn: Callable[[T], jax.Array], body_fn: Callable[[T], 
 
 
 def int_carry_fori_loop(lo, hi, body_fn: Callable, init: T) -> T:
-    """``lax.fori_loop`` whose carry is Mosaic-layout-safe: boolean leaves
-    are carried as int32 and every leaf is rank-promoted to >= 2-D at the
-    loop boundary (squeezed back before the body runs). Mosaic CHECK-fails
-    (layout.h: ``arr.size() >= layout_rank``) when an ``scf.for`` in a
-    Pallas TPU kernel carries i1 vectors or mixes 1-D carries with selects
-    (bisected in /tmp repros, PERF.md round 2). On the XLA path the
-    converts/reshapes fuse away, so this is free outside kernels and
-    bit-exact everywhere."""
+    """``lax.fori_loop`` whose boolean leaves are carried as int32 and
+    every leaf rank-promoted to >= 2-D at the loop boundary (squeezed back
+    before the body runs). The form was needed by a since-removed Pallas
+    kernel; the budgeted adjoint path still uses it (core/solve.py), and on
+    the XLA path the converts/reshapes fuse away, so it is free and
+    bit-exact."""
     leaves, treedef = jax.tree_util.tree_flatten(init)
     leaves = [jnp.asarray(l) for l in leaves]
     isbool = [l.dtype == jnp.bool_ for l in leaves]

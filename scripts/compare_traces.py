@@ -23,6 +23,22 @@ def load(path):
         return [json.loads(line) for line in fh if line.strip()]
 
 
+def divergences(a, b, atol=1e-12, rtol=1e-10, fields=None):
+    """Yield ``(attempt, field, what)`` for every field of every step
+    attempt on which two traces disagree, in attempt order; ``fields``
+    restricts the comparison to those names."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        keys = set(ra) & set(rb)
+        if fields is not None:
+            keys &= set(fields)
+        for key in sorted(keys):
+            va, vb = np.asarray(ra[key], float), np.asarray(rb[key], float)
+            if va.shape != vb.shape:
+                yield i, key, f"shape {va.shape} vs {vb.shape}"
+            elif not np.allclose(va, vb, atol=atol, rtol=rtol, equal_nan=True):
+                yield i, key, f"max |diff| = {np.max(np.abs(va - vb)):.6e}"
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("trace_a")
@@ -39,21 +55,12 @@ def main():
         print(f"note: different attempt counts: {len(a)} vs {len(b)}; comparing first {n}")
 
     bad = 0
-    for i in range(n):
-        ra, rb = a[i], b[i]
-        for key in sorted(set(ra) & set(rb)):
-            va, vb = np.asarray(ra[key], float), np.asarray(rb[key], float)
-            if va.shape != vb.shape:
-                print(f"attempt {i}: {key}: shape {va.shape} vs {vb.shape}")
-                bad += 1
-                continue
-            if not np.allclose(va, vb, atol=args.atol, rtol=args.rtol, equal_nan=True):
-                diff = np.max(np.abs(va - vb))
-                print(f"attempt {i}: {key}: max |diff| = {diff:.6e}")
-                bad += 1
-                if bad >= args.max_report:
-                    print("... (truncated; first divergence localized above)")
-                    return 1
+    for i, key, what in divergences(a, b, args.atol, args.rtol):
+        print(f"attempt {i}: {key}: {what}")
+        bad += 1
+        if bad >= args.max_report:
+            print("... (truncated; first divergence localized above)")
+            return 1
     if bad:
         return 1
     print(f"traces agree on {n} attempts (atol={args.atol}, rtol={args.rtol})")

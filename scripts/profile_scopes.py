@@ -4,6 +4,9 @@ Usage:
   python scripts/profile_scopes.py --trace           # capture a fresh trace
   python scripts/profile_scopes.py [dir]             # aggregate newest trace
 
+Traces (and the compiled HLO) go to ``traces/scopes`` in the checkout
+(git-ignored) unless another directory is given.
+
 Each HLO op event's name carries the jax.named_scope prefixes the source
 computation was annotated with (utils/profiling.scope on every core
 routine); summing device-track durations by first scope component gives the
@@ -16,8 +19,12 @@ import collections
 import glob
 import gzip
 import json
+import os
 import sys
 
+OUT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "traces", "scopes"
+)
 
 SCOPES = (
     "set_coeffs", "predict", "restore", "reset", "nonlinear_solve",
@@ -26,14 +33,15 @@ SCOPES = (
 )
 
 
-def capture(out_dir="/tmp/xprof_r3", batch=262144):
+def capture(out_dir=OUT_DIR, batch=262144):
     import jax
     import jax.numpy as jnp
     import numpy as np
     from functools import partial
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ida_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from ida_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from ida_tpu.core.solve import solve as core_solve, TASK_NORMAL
     from ida_tpu.core.state import IdaOptions
     from ida_tpu.models import roberts_factory
@@ -57,7 +65,9 @@ def capture(out_dir="/tmp/xprof_r3", batch=262144):
     _ = np.asarray(out[0].nst)
     print("warm", flush=True)
     txt = fn.lower(states_T, tout=tout_T).compile().as_text()
-    open("/tmp/solve_r3.hlo", "w").write(txt)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "solve.hlo"), "w") as fh:
+        fh.write(txt)
     states, params, _, _ = bench.build(batch, dtype)
     states_T = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), states)
     import jax.profiler
@@ -77,12 +87,12 @@ def aggregate(root):
     with gzip.open(paths[-1], "rt") as fh:
         data = json.load(fh)
     events = data.get("traceEvents", [])
-    # find device-track pids (TPU core tracks, not host threads)
+    # find device-track pids (GPU stream tracks, not host threads)
     device_pids = set()
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             name = e.get("args", {}).get("name", "")
-            if "TPU" in name or "/device:" in name or "XLA" in name:
+            if "/device:" in name or "GPU" in name or "XLA" in name:
                 device_pids.add(e["pid"])
     by_scope = collections.Counter()
     total = 0.0
@@ -113,4 +123,4 @@ if __name__ == "__main__":
         d = capture()
         aggregate(d)
     else:
-        aggregate(sys.argv[1] if len(sys.argv) > 1 else "/tmp/xprof_r3")
+        aggregate(sys.argv[1] if len(sys.argv) > 1 else OUT_DIR)

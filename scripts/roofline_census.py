@@ -1,6 +1,6 @@
 """Quantitative roofline for the f64 headline leg (VERDICT r4 item 2).
 
-Turns the "f64 is at the emulation bandwidth ceiling" claim into numbers:
+Puts the f64 headline program against the part's own ceilings:
 
 1. BYTES PER STEP from the compiler itself: ``compiled.cost_analysis()``
    ("bytes accessed") of the exact headline program (B-lane Roberts
@@ -9,8 +9,7 @@ Turns the "f64 is at the emulation bandwidth ceiling" claim into numbers:
 2. ACHIEVED PROGRAM BANDWIDTH: bytes accessed / measured wall.
 3. STREAM CEILING on the same chip: a pure f64 triad (y = a*x + y) over
    an HBM-resident array, timed the same way — the best any
-   bandwidth-bound f64 program can do with the part's split-f32
-   emulation.
+   bandwidth-bound f64 program can do on the part.
 
 Roofline ratio = (2) / (3). Output: one JSON line for PERF.md.
 
@@ -18,6 +17,7 @@ Usage:  python scripts/roofline_census.py [batch]   (default 262144)
 """
 
 import json
+import os
 import sys
 import time
 
@@ -25,11 +25,9 @@ import time
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/ida_tpu_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from ida_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from functools import partial
@@ -89,7 +87,7 @@ def main():
 
     # --- exact carry census: bytes/lane the attempt loop MUST read+write
     # per trip (the state pytree itself; the algorithmic lower bound on
-    # HBM traffic if nothing stays VMEM-resident) ---
+    # HBM traffic if nothing stays resident on chip) ---
     leaves = jax.tree_util.tree_leaves(states_T)
     carry_bytes_per_lane = sum(
         l.size * l.dtype.itemsize for l in leaves
@@ -117,7 +115,7 @@ def main():
     # --- arithmetic ceilings: K-deep dependent elementwise chains on a
     # resident vector — the sustained element-op rate the part gives a
     # program shaped like the solver body (long dependent chains of
-    # small ops), NOT the MXU peak. y=y*a+b is a non-reassociable
+    # small ops), NOT the matrix-unit peak. y=y*a+b is a non-reassociable
     # polynomial in y so XLA cannot collapse the chain; the div chain is
     # nonlinear. Each op counts 1 element-op (the same convention XLA's
     # cost_analysis "flops" uses), so these divide cleanly into the
@@ -184,7 +182,7 @@ def main():
         "chain_f64_fma_Gops": round(fma64 / 1e9, 1),
         "chain_f64_div_Gops": round(div64 / 1e9, 1),
         "chain_f32_fma_Gops": round(fma32 / 1e9, 1),
-        "f64_emulation_penalty_fma": round(fma32 / fma64, 2),
+        "f32_over_f64_fma": round(fma32 / fma64, 2),
         "program_f64_Gops_as_reported": round(flops / wall / 1e9, 1),
         "program_flops_per_lane_attempt": (
             round(flops / (att_max * batch), 1) if att_max else None
@@ -208,4 +206,5 @@ def main():
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     main()

@@ -1,7 +1,7 @@
 """Ensemble (vmap) and sharded-mesh integration tests.
 
 The reference has no parallelism (SURVEY.md §2.2); these tests validate the
-TPU-native scale-out: the whole solver under vmap (lockstep batching with
+ensemble scale-out: the whole solver under vmap (lockstep batching with
 per-lane step counts) and the batch axis sharded over a virtual 8-device
 mesh."""
 
@@ -103,24 +103,3 @@ def test_report_failures_poisoned_lane():
     assert "lane 2" in txt and r["status_name"] in txt
     # healthy lanes solved fine
     assert all(istate[i] >= 0 for i in (0, 1, 3))
-
-
-def test_fused_solve_rejects_roots():
-    import pytest
-    import functools
-    from ida_tpu.models import roberts_factory, ROBERTS_PARAMS, ROBERTS_YY0
-    roberts_factory_roots = functools.partial(roberts_factory, with_roots=True)
-    from ida_tpu.ops.fused_solve import make_fused_solve
-    from ida_tpu.parallel import ensemble_init
-    from ida_tpu.tol_control import tol_sv
-
-    b = 8
-    params = jnp.tile(jnp.asarray(ROBERTS_PARAMS, jnp.float32), (b, 1))
-    yy0 = jnp.tile(jnp.asarray(ROBERTS_YY0, jnp.float32), (b, 1))
-    yp0 = params[:, 0:1] * jnp.asarray([-1.0, 1.0, 0.0], jnp.float32)
-    tol = tol_sv(1e-4, jnp.array([1e-8, 1e-6, 1e-6], jnp.float32))
-    states = ensemble_init(roberts_factory_roots, params, yy0, yp0,
-                           dtype=jnp.float32)
-    fn = make_fused_solve(roberts_factory_roots, tol, tile=b, interpret=True)
-    with pytest.raises(NotImplementedError, match="rootfinding"):
-        fn(states, params, jnp.asarray(0.4, jnp.float32))

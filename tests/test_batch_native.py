@@ -2,10 +2,9 @@
 
 The solver core accepts states whose leaves carry one TRAILING batch axis
 and runs WITHOUT vmap — scalar lane predicates broadcast against
-trailing-batch data leaves. This layout exists so the fused whole-solve
-Pallas kernel (ops/fused_solve.py) can avoid the vmap-of-while tracing
-pathology. The contract tested here: the native path is BIT-IDENTICAL to
-the vmapped per-lane path.
+trailing-batch data leaves. This layout avoids the vmap-of-while select
+merge, and bench.py times it as the headline. The contract tested here:
+the native path is BIT-IDENTICAL to the vmapped per-lane path.
 """
 
 import jax

@@ -26,10 +26,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
-def smoke_output():
+def detail_path(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("bench") / "BENCH_DETAIL_test.json")
+
+
+@pytest.fixture(scope="module")
+def smoke_output(detail_path):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["IDA_BENCH_DETAIL"] = "/tmp/BENCH_DETAIL_test.json"
+    env["IDA_BENCH_DETAIL"] = detail_path
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py"), "--smoke"],
         capture_output=True, text=True, timeout=900, env=env, cwd=REPO,
@@ -70,23 +75,47 @@ def test_headline_schema(smoke_output):
     for key in ("total_steps", "wall_best_s", "pipeline", "ok_lanes",
                 "oracle_best", "detail_file", "legs_err", "legs_skipped"):
         assert key in d, key
-    # ADVICE r3: the wall/pipeline division is TPU-only; CPU must run
+    # the wall/pipeline division is for accelerators; CPU must run
     # single-dispatch
     assert d["pipeline"] == 1
+    # every result names the device it ran on
+    assert d["device"]["platform"] == "cpu" and d["device"]["count"] >= 1
     # every smoke lane converged
     assert d["ok_lanes"] == d["lanes"]
 
 
-def test_detail_file_written(smoke_output):
-    with open("/tmp/BENCH_DETAIL_test.json") as f:
+def test_detail_file_written(smoke_output, detail_path):
+    with open(detail_path) as f:
         detail = json.load(f)
     assert "headline" in detail
     assert "leg_errors" in detail and isinstance(detail["leg_errors"], dict)
     assert "legs_skipped" in detail
 
 
+def test_failed_headline_exits_nonzero(tmp_path):
+    """A failed headline leg is a failed run: it prints no record and
+    exits 1 with the error (no CPU numbers stand in for it)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               IDA_BENCH_DETAIL=str(tmp_path / "detail.json"))
+    code = (
+        "import sys, bench\n"
+        "def boom(*a, **k):\n"
+        "    raise RuntimeError('injected headline failure')\n"
+        "bench.run_ensemble = boom\n"
+        "sys.argv = ['bench.py', '--smoke']\n"
+        "bench.main()\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, env=env, cwd=REPO,
+    )
+    assert out.returncode == 1, out.stderr[-2000:]
+    assert "injected headline failure" in out.stderr
+    assert not [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+
+
 # ---------------------------------------------------------------------------
-# _Budget.leg retry semantics (round 4): a transient tunnel failure on the
+# _Budget.leg retry semantics (round 4): a transient failure on the
 # headline leg must be retried, recorded, and — on eventual success — moved
 # to a ':recovered' key so the artifact shows both the hiccup and the save.
 
@@ -105,13 +134,13 @@ def test_leg_retry_recovers_from_transient_failure():
     def flaky():
         calls["n"] += 1
         if calls["n"] == 1:
-            raise RuntimeError("read body: response body closed")
+            raise RuntimeError("transient runtime error")
         return "ok"
 
     assert budget.leg(flaky, name="headline", min_s=0.0, retries=2) == "ok"
     assert calls["n"] == 2
     assert "headline" not in budget.errors
-    assert "read body" in budget.errors["headline:recovered"]
+    assert "transient runtime error" in budget.errors["headline:recovered"]
 
 
 def test_leg_retry_exhaustion_records_every_attempt():
@@ -153,7 +182,7 @@ def test_leg_timeout_never_retried():
 
 
 def test_leg_wedge_timer_fires_from_thread():
-    """A leg that never sees SIGALRM (blackholed tunnel read) must trip
+    """A leg that never sees SIGALRM (blocked inside a C call) must trip
     the wedge timer THREAD, which is immune to the main thread's state."""
     import time as _time
 

@@ -1,6 +1,6 @@
 """Budgeted attempt loop (max_attempts fori_loop + exact resume carry):
-bit-identical to the unbudgeted while-loop path. This is the Mosaic-safe
-main-loop form for the fused Pallas kernel (PERF.md round-2 plan)."""
+bit-identical to the unbudgeted while-loop path. This is the
+reverse-differentiable main-loop form the discrete adjoint uses."""
 
 import jax
 import jax.numpy as jnp

@@ -1,5 +1,5 @@
 """float32 throughput mode: the whole solver runs in f32 with appropriately
-looser tolerances (TPU-native dtype; parity mode stays f64)."""
+looser tolerances (throughput dtype; parity mode stays f64)."""
 
 import jax.numpy as jnp
 import numpy as np

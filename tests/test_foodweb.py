@@ -39,3 +39,38 @@ def test_foodweb_spgmr():
     assert ida.get_num_lin_iters() > 0
     assert ida.get_num_prec_solves() > 0
     assert ida.get_num_jac_evals() == 0
+
+
+def test_contractions_ask_for_full_float32_precision():
+    """Every dot_general of the foodweb residual and preconditioner setup
+    carries Precision.HIGHEST, so a float32 state never contracts in TF32
+    (about three decimal digits) on a GPU."""
+    import jax
+    import jax.numpy as jnp
+
+    mx = my = 4
+    prob = foodweb_problem(mx, my)
+    c0, cp0 = foodweb_ic(mx, my)
+    y = jnp.asarray(c0, jnp.float32)
+    yp = jnp.asarray(cp0, jnp.float32)
+    t, cj = jnp.float32(0.0), jnp.float32(1e3)
+
+    def dots(jaxpr):
+        # dot_generals at every nesting level (jnp.einsum wraps its own jit)
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else (v,):
+                    sub = getattr(sub, "jaxpr", sub)
+                    if hasattr(sub, "eqns"):
+                        yield from dots(sub)
+
+    for fn, args in ((prob.res, (t, y, yp)),
+                     (prob.prec_setup, (t, cj, y, yp, y))):
+        found = list(dots(jax.make_jaxpr(fn)(*args).jaxpr))
+        assert found, fn
+        for eqn in found:
+            prec = eqn.params["precision"]
+            assert prec is not None, eqn
+            assert all(p == jax.lax.Precision.HIGHEST for p in prec), prec

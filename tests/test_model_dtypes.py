@@ -1,11 +1,12 @@
 """Every bundled model's residual must preserve the state dtype.
 
-On TPU, a problem closure that captures f64 constant arrays silently
-promotes f32 inputs to f64 THROUGH the jtimes jvp, so f32 and
-ls_precision="single" modes quietly run emulated-f64 math (the foodweb
-mixed bench leg measured 1.05x instead of 2.42x before this was fixed —
-PERF.md round 4). This pins `res(f32).dtype == float32` (and jtimes) for
-every bundled model so a future constant can't reintroduce the upcast.
+A problem closure that captures f64 constant arrays silently promotes
+f32 inputs to f64 THROUGH the jtimes jvp, so f32 and
+ls_precision="single" modes quietly run f64 math (on an earlier
+accelerator that emulated f64, the foodweb mixed bench leg gained 1.05x
+instead of 2.42x before this was fixed). This pins
+`res(f32).dtype == float32` (and jtimes) for every bundled model so a
+future constant can't reintroduce the upcast.
 """
 
 import jax.numpy as jnp

@@ -6,7 +6,7 @@ dp-sharded and sharded-N runs land on the single-device trajectories;
 (b) the 2-D (batch x state) mesh composition solves correctly; (c) the
 dp inner loop compiles to ZERO collectives (the embarrassingly-parallel
 claim of SURVEY.md §2.2: per-lane norms, no cross-lane reductions — so
-nothing can ride DCN), while the sharded-N program's all-reduces are the
+nothing crosses the interconnect), while the sharded-N program's all-reduces are the
 expected SPGMR dot-product psums.
 """
 
@@ -31,6 +31,7 @@ from ida_tpu.parallel import (
     shard_ensemble_2d,
     shard_state_vector,
 )
+from ida_tpu.parallel.mesh import data_collectives
 from ida_tpu.tol_control import tol_ss, tol_sv
 from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -116,7 +117,7 @@ def test_dp_inner_loop_has_no_data_collectives():
     ONLY collectives XLA may insert are the scalar pred[] all-reduces that
     evaluate the global while-loop conditions (`any lane still active`) —
     one predicate byte per loop trip, nothing proportional to batch or
-    state size, hence nothing that could saturate DCN."""
+    state size, hence nothing that could load the interconnect."""
     tol = tol_sv(1.0e-4, jnp.asarray([1e-8, 1e-6, 1e-6]))
     mesh = make_mesh(8)
     states, params = _roberts_ensemble(16)
@@ -138,6 +139,29 @@ def test_dp_inner_loop_has_no_data_collectives():
     assert not bad, "dp program moves array data between devices:\n" + (
         "\n".join(bad)
     )
+
+
+def test_data_collectives_reads_result_shapes():
+    """The HLO audit flags collectives by their result shape: scalar
+    predicates (alone, combined into a tuple, or as async start/done
+    pairs) pass; anything carrying an array is reported, and with
+    allow_scalar=False every collective is."""
+    hlo = "\n".join([
+        "%a = pred[] all-reduce(pred[] %p), to_apply=%or",
+        "%b = (pred[], pred[]) all-reduce(pred[] %p, pred[] %q), to_apply=%or",
+        "%c = pred[] all-reduce-start(pred[] %p), to_apply=%or",
+        "%d = pred[] all-reduce-done(pred[] %c)",
+        "%e = f64[4,3]{1,0} all-gather(f64[1,3]{1,0} %x), dimensions={0}",
+        "%f = f32[128]{0} all-reduce-start(f32[128]{0} %y), to_apply=%add",
+        "%g = (f64[8]{0}, u32[]) collective-permute-start(f64[8]{0} %z)",
+        "%h = f64[8]{0} add(f64[8]{0} %u, f64[8]{0} %v)",
+        "%i = f64[8]{0} fusion(f64[8]{0} %u), calls=%all-reduce_clone",
+    ])
+    bad = data_collectives(hlo)
+    assert [ln.split(" =")[0] for ln in bad] == ["%e", "%f", "%g"]
+    strict = data_collectives(hlo, allow_scalar=False)
+    assert [ln.split(" =")[0] for ln in strict] == [
+        "%a", "%b", "%c", "%d", "%e", "%f", "%g"]
 
 
 def _heat2d_setup(m=16, mxstep=2000):

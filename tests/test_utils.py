@@ -47,29 +47,6 @@ def test_tree_where_broadcasts_over_leaves():
     np.testing.assert_array_equal(np.asarray(out["y"]), [0, 1])
 
 
-def test_fused_pack_roundtrip():
-    from ida_tpu.core.state import init_state
-    from ida_tpu.models import roberts_factory, ROBERTS_PARAMS
-    from ida_tpu.ops.fused_solve import (
-        _pack_tail, _template, _to_kernel_dtypes, _unpack_tail,
-    )
-
-    prob = roberts_factory(jnp.asarray(ROBERTS_PARAMS, jnp.float32))
-    st = init_state(prob, np.ones(3), np.zeros(3), dtype=jnp.float32)
-    st = _to_kernel_dtypes(st)
-    b = 4
-    st_b = jax.tree_util.tree_map(
-        lambda x: jnp.stack([x + i for i in range(b)]) if x.dtype.kind == "f" else jnp.stack([x] * b),
-        st,
-    )
-    treedef, plan = _template(st)
-    st_T = jax.tree_util.tree_map(lambda x: jnp.moveaxis(x, 0, -1), st_b)
-    fb, ib = _pack_tail(st_T, plan)
-    st_back = _unpack_tail(fb, ib, treedef, plan)
-    for a, c in zip(jax.tree_util.tree_leaves(st_T), jax.tree_util.tree_leaves(st_back)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
-
-
 def test_named_scopes_in_lowered_program():
     """Per-routine jax.named_scope annotations (the reference's
     profile_scope! coverage, src/lib.rs:614-1364) are visible in the lowered
